@@ -1,10 +1,9 @@
-"""Round-5: serve the 1.2 Gbp WIDE index on ONE real TPU chip via the
-sampled SA (--sa-shift): the first-ever >=2^31 serving run (VERDICT r4
-next #4/#5).  Records BENCH_r05_big.json.
+"""Serve the 1.2 Gbp WIDE index (>=2^31 text rows) on one card via the
+sampled SA (--sa-shift).
 
-Device footprint at shift=5: cp 2.4 GB + rank blocks 1.2 GB + samples
-0.6 GB + pac 0.3 GB ~= 4.5 GB — fits v5e's 16 GB where the full int64 SA
-(19.2 GB) cannot.
+Device footprint at shift=5, computed from array sizes: cp 2.4 GB + rank
+blocks 1.2 GB + samples 0.6 GB + pac 0.3 GB ~= 4.5 GB, against 19.2 GB for
+the full int64 SA.
 """
 import json
 import os
@@ -21,9 +20,9 @@ fq = os.path.join(REPO, ".bench", "reads_big_20000.fq")
 N_READS = int(os.environ.get("N", "20000"))
 SHIFT = int(os.environ.get("SHIFT", "5"))
 
-from tpubwa.cli import _enable_compile_cache
+from tpubwa.utils.cache import enable_compile_cache
 
-_enable_compile_cache()
+enable_compile_cache()
 
 if not os.path.exists(fq):
     from tpubwa.io.fasta import read_fasta
@@ -58,7 +57,7 @@ t0 = time.monotonic()
 idx = FMIndex.load(fa)
 rec["index_load_s"] = round(time.monotonic() - t0, 1)
 t0 = time.monotonic()
-al = Aligner(idx, MemOptions.preset("v5e-1", sa_sample_shift=SHIFT))
+al = Aligner(idx, MemOptions.auto(sa_sample_shift=SHIFT))
 import jax
 
 jax.block_until_ready(al.di.cp)
@@ -108,6 +107,6 @@ for line in sam.getvalue().splitlines():
     if f[2] != "*" and abs(int(f[3]) - 1 - true_pos) <= 50:
         ok += 1
 rec["mapped_near_truth_frac"] = round(ok / max(tot, 1), 4)
-with open(os.path.join(REPO, "BENCH_r05_big.json"), "w") as f:
+with open(os.path.join(REPO, ".bench", "run_big.json"), "w") as f:
     json.dump(rec, f, indent=1)
 print(json.dumps(rec), flush=True)

@@ -1,5 +1,5 @@
 """Measure the sampled-SA seeding-cost delta at shift k in {0, 4, 8} on
-the bench fixture (VERDICT r4 ask #5): same reads, same index, full
+the bench fixture: same reads, same index, full
 seeding phase (SMEM+SAL wall) under full SA vs sampled SA."""
 import os
 import sys
@@ -11,12 +11,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from bench import _ensure_fixture  # noqa: E402
 from tpubwa.align.pipeline import Aligner  # noqa: E402
-from tpubwa.cli import _enable_compile_cache  # noqa: E402
 from tpubwa.config import MemOptions  # noqa: E402
 from tpubwa.index.fmindex import FMIndex  # noqa: E402
 from tpubwa.io.fastq import stream_batches  # noqa: E402
+from tpubwa.utils.cache import enable_compile_cache  # noqa: E402
 
-_enable_compile_cache()
+enable_compile_cache()
 
 ref_fa, fq1, _ = _ensure_fixture(4.6, 20000, False)
 idx = FMIndex.load(ref_fa)
@@ -24,7 +24,7 @@ idx = FMIndex.load(ref_fa)
 batches = list(stream_batches(fq1, 8192, 320))
 
 for shift in (0, 4, 8):
-    opt = MemOptions.preset("v5e-1")
+    opt = MemOptions.auto()
     opt.sa_sample_shift = shift
     al = Aligner(idx, opt)
     # warm (compile + cache)

@@ -1,8 +1,10 @@
-"""Test config: force an 8-virtual-device CPU platform before JAX loads.
+"""Test config: an 8-virtual-device CPU platform unless JAX_PLATFORMS says
+otherwise, set before JAX loads.
 
-Tests never touch the real TPU — multi-chip sharding is validated on the
-virtual CPU mesh (the reference's "launch 4 EC2 instances" integration tier
-becomes fake-mesh configs — SURVEY.md §4 implication).
+Multi-card sharding is validated on the virtual CPU mesh (the reference's
+"launch 4 EC2 instances" integration tier becomes fake-mesh configs —
+SURVEY.md §4 implication).  Tests marked ``gpu`` need a card and skip
+elsewhere; on a card: ``JAX_PLATFORMS=cuda python -m pytest -m gpu tests/``.
 """
 import os
 
@@ -25,3 +27,14 @@ import pytest
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's default device is a CUDA GPU (decided here, at
+    run time, so every worker collects the same tests)."""
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
+        pytest.skip("needs a CUDA GPU: JAX_PLATFORMS=cuda python -m pytest "
+                    "-m gpu tests/")

@@ -9,7 +9,6 @@ task #1 requires this pin before the generator path can stop being the
 production route.
 """
 import numpy as np
-import pytest
 
 
 def _mk_aligner(ref_codes, contigs, batch_reads, max_read_len=160):
@@ -43,12 +42,9 @@ def _regs_flat(al, batch):
     B = batch.n
     bounds = np.searchsorted(seed_rows[:, 0], np.arange(B + 1))
     skip = (np.asarray(batch.lens) < al.opt.min_seed_len).astype(np.uint8)
-    prep = flatext.prepare_jobs(al.opt, al.idx.l_pac, al.contig_offsets,
-                                seed_rows, bounds, skip, batch.lens,
-                                l_rep[:B])
-    if prep is None:
-        pytest.skip("native library unavailable")
-    h, jobs, n_jobs = prep
+    h, jobs, n_jobs = flatext.prepare_jobs(
+        al.opt, al.idx.l_pac, al.contig_offsets, seed_rows, bounds, skip,
+        batch.lens, l_rep[:B])
     results = flatext.run_waves(al, handle[2], handle[3], jobs, n_jobs)
     return flatext.finalize_regs(h, results, B, n_jobs)
 

@@ -49,9 +49,7 @@ def _gen_text(al, batch, rid0):
     from tpubwa.align.pipeline import Aligner  # noqa: F401
     from tpubwa.utils.rounds import drive_rounds
 
-    flat, fb = al._regions_flat(batch)
-    assert flat is not None
-    fields, bounds = flat
+    fields, bounds = al._regions_flat(batch)
     gens = [
         finalize.se_records_g(
             al.opt, al.idx, batch.names[i], batch.seqs[i], batch.quals[i],

@@ -55,21 +55,17 @@ def test_mesh_production_sam_identity(fixture):
 
 
 def test_mesh_preset_plumbing(fixture):
-    """MemOptions.preset mesh_shape reaches the Aligner (dead-config check:
-    VERDICT round 1 flagged mesh_shape as never read)."""
+    """MemOptions.mesh_shape reaches the Aligner (dead-config check: it was
+    once never read)."""
     import jax
 
     from tpubwa.align.pipeline import Aligner
     from tpubwa.config import MemOptions
 
     idx, _, batch = fixture
-    try:
-        n_cpu = len(jax.devices("cpu"))
-    except RuntimeError:
-        n_cpu = 0
-    if max(len(jax.devices()), n_cpu) < 4:
+    if len(jax.devices()) < 4:
         pytest.skip("needs >=4 (virtual) devices")
-    opt = MemOptions.preset("v5e-4", batch_reads=64, max_read_len=112)
+    opt = MemOptions(batch_reads=64, max_read_len=112, mesh_shape=(4,))
     al = Aligner(idx, opt)
     assert al.mesh is not None and al.mesh.devices.size == 4
     recs = al.align_se_batch(batch, 0)

@@ -65,8 +65,7 @@ def test_seed_rows_matches_reference(idx, B, M, max_occ, cap):
 
     ref = compact_seeds(smems_to_seeds(di, sm, max_occ=max_occ,
                                        out_seeds=cap))
-    got = seed_rows(di, sm, max_occ=max_occ, per_read_cap=cap,
-                    rows_per_read=cap)  # ample global cap for the test
+    got = seed_rows(di, sm, max_occ=max_occ, per_read_cap=cap)
     n_ref, n_got = int(ref.n), int(got.n)
     assert n_got == n_ref
     np.testing.assert_array_equal(np.asarray(got.packed)[:n_got],
@@ -86,7 +85,21 @@ def test_seed_rows_global_cap_flags_overflow(idx):
     rng = np.random.default_rng(3)
     di = DeviceIndex.from_host(idx)
     sm = _random_smems(rng, di, 8, 16)
-    tight = seed_rows(di, sm, max_occ=500, per_read_cap=128, rows_per_read=2)
-    # with a 2-rows/read global cap some read must overflow
-    assert int(tight.n) <= 16
-    assert bool(np.asarray(tight.overflow).any())
+    full = seed_rows(di, sm, max_occ=500, per_read_cap=128)
+    tight = seed_rows(di, sm, max_occ=500, per_read_cap=2)
+    # the per-read cap is the only truncation: an over-cap read is flagged
+    # and keeps a prefix of at most 2 of its seeds (strand-bridging rows
+    # drop after the cap); reads under the cap keep all of theirs
+    ovf = np.asarray(tight.overflow)
+    assert ovf.any()
+    rows_full = np.asarray(full.packed)[:int(full.n)]
+    rows_tight = np.asarray(tight.packed)[:int(tight.n)]
+    for b in range(8):
+        mine = rows_full[rows_full[:, 0] == b]
+        kept = rows_tight[rows_tight[:, 0] == b]
+        assert len(kept) <= 2
+        np.testing.assert_array_equal(kept, mine[:len(kept)])
+        if not ovf[b]:
+            np.testing.assert_array_equal(kept, mine)
+        if len(mine) > 2:
+            assert ovf[b]

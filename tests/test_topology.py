@@ -1,24 +1,51 @@
-"""Topology auto-detection (reference analog: the runsimd_arm dispatcher's
-probe + G4->G3->G2 fallback chain, /root/reference/PHASE1_IMPLEMENTATION.md
-:85-131 — here: jax.devices() -> preset chain, walked on failure)."""
+"""Device selection (reference analog: the runsimd_arm dispatcher's CPU
+probe — here jax.devices() picks the batch and mesh, and what it cannot
+serve is an error, not a fallback)."""
 import io
 
 import numpy as np
+import pytest
 
 from tpubwa.config import MemOptions
 
 
-def test_auto_chain_tiers():
-    assert MemOptions.auto_chain("cpu", 8) == ["cpu-dev"]
-    assert MemOptions.auto_chain("tpu", 1) == ["v5e-1"]
-    assert MemOptions.auto_chain("tpu", 4) == ["v5e-4", "v5e-1"]
-    assert MemOptions.auto_chain("tpu", 16) == [
-        "v5e-16", "v5e-4", "v5e-1"]
+@pytest.mark.parametrize("n", [1, 4])
+def test_gpu_preset(n):
+    """8192 reads per card; a ("dp",) mesh over the cards when n > 1."""
+    opt = MemOptions.preset("gpu", n, min_seed_len=21)
+    assert opt.batch_reads == 8192 * n
+    assert opt.mesh_shape == ((n,) if n > 1 else ())
+    assert opt.pad_tail_full and opt.min_seed_len == 21
+
+
+def test_cpu_preset_and_auto():
+    opt = MemOptions.preset("cpu", 8)
+    assert (opt.batch_reads, opt.mesh_shape) == (256, ())
+    assert MemOptions.auto().batch_reads == 256  # CPU platform here
+
+
+@pytest.mark.parametrize("platform", ["rocm", "metal", "neuron"])
+def test_unknown_platform_raises(platform):
+    with pytest.raises(ValueError, match="no preset"):
+        MemOptions.preset(platform, 1)
+
+
+def test_make_mesh_too_few_devices_raises():
+    import jax
+
+    from tpubwa.parallel.mesh import make_mesh
+
+    n = len(jax.devices())
+    assert make_mesh(n).devices.size == n
+    with pytest.raises(ValueError, match="only"):
+        make_mesh(n + 1)
+    with pytest.raises(ValueError, match="only 1"):
+        make_mesh(4, devices=jax.devices()[:1])
 
 
 def test_align_fastq_no_preset_auto(tmp_path):
     """`tpu-bwa mem` with no --preset picks a preset from the visible
-    devices and completes (CPU platform here -> cpu-dev)."""
+    devices and completes (CPU platform here -> the cpu preset)."""
     from tpubwa.align.pipeline import align_fastq
     from tpubwa.index.fmindex import FMIndex
     from tpubwa.io.fasta import Contig

@@ -5,7 +5,7 @@ int64 (`DeviceIndex.from_host(idx, wide=True)` under jax x64): the device
 programs are dtype-generic, so equality against the int32 path validates
 the exact arithmetic a GRCh38-scale (6.2 Gbp text) index would run.
 Sharded-SA lookups (the mode where the ~31 GB suffix array cannot be
-replicated per chip — index/fmindex.py sizing) are validated on the
+replicated per card — index/fmindex.py sizing) are validated on the
 8-virtual-device CPU mesh.
 
 Reference analog: the 5-byte SA layout pinned in

@@ -150,17 +150,14 @@ class ChainBatch:
 def chain_filter_batch_native(opt: MemOptions, l_pac: int,
                               contig_offsets: np.ndarray,
                               seed_rows: np.ndarray, bounds: np.ndarray,
-                              skip: np.ndarray) -> ChainBatch | None:
-    """Chain + filter a whole batch in one native call (native/chain.cpp).
-    Returns None when the native library is unavailable (callers fall back
-    to the per-read Python reference)."""
+                              skip: np.ndarray) -> ChainBatch:
+    """Chain + filter a whole batch in one native call (native/chain.cpp);
+    chain_read/filter_chains are its per-read Python reference."""
     import ctypes
 
     from tpubwa.native import load_native
 
     lib = load_native()
-    if lib is None:
-        return None
     seed_rows = np.ascontiguousarray(seed_rows, dtype=np.int64)
     bounds = np.ascontiguousarray(bounds, dtype=np.int64)
     skip = np.ascontiguousarray(skip, dtype=np.uint8)

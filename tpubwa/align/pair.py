@@ -673,6 +673,9 @@ def pe_sam_text(aligner, b1, b2, pair_id0: int, pairs, pes,
     keep_i = (set(flat[cores[4]].tolist()) if cores is not None
               else set())
     rest = sorted(set(range(B)) - keep_i)
+    with aligner._ovf_lock:
+        aligner.n_flat_reads += 2 * B
+        aligner.n_declined += 2 * len(rest)
     if rest:
         _pe_generator_text(aligner, b1, b2, pair_id0, pairs, pes, rest,
                            other, marked=marked)

@@ -1,7 +1,7 @@
 """Chain -> alignment regions via batched seed extension.
 
 Semantics of bwa-mem's mem_chain2aln (reference call stack SURVEY.md §3.1
-worker_aln → mem_chain2aln_across_reads_V2 → BandedPairWiseSW).  The TPU
+worker_aln → mem_chain2aln_across_reads_V2 → BandedPairWiseSW).  The batched
 redesign: each read is a generator-coroutine that walks its chains/seeds
 (score-descending, with bwa's containment skip tests) and *yields* one
 whole-seed job per seed; the driver (run_extension_rounds) batches one

@@ -13,6 +13,7 @@ import sys
 import time
 
 import tpubwa
+from tpubwa.config import PLATFORMS
 
 
 def cmd_index(args) -> int:
@@ -54,12 +55,6 @@ def cmd_mem(args) -> int:
                   file=sys.stderr)
             return 1
         shard = (args.host_id, args.hosts)
-        if args.coordinator:
-            import jax
-
-            jax.distributed.initialize(
-                coordinator_address=args.coordinator,
-                num_processes=args.hosts, process_id=args.host_id)
     if args.profile:
         # device trace (SURVEY.md §5 "Tracing / profiling": the reference
         # prescribed perf record recipes; here jax.profiler captures the
@@ -94,29 +89,14 @@ def cmd_mem(args) -> int:
                   file=sys.stderr)
 
 
-def _enable_compile_cache() -> None:
-    """Persistent XLA compile cache under ~/.cache/tpubwa (first compile of
-    the device pipeline is tens of seconds; cached reruns are instant)."""
-    import os
-
-    try:
-        import jax
-
-        cache = os.environ.get(
-            "TPUBWA_COMPILE_CACHE",
-            os.path.join(os.path.expanduser("~"), ".cache", "tpubwa",
-                         "jax_cache"))
-        os.makedirs(cache, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-
 def main(argv: list[str] | None = None) -> int:
-    _enable_compile_cache()
-    p = argparse.ArgumentParser(prog="tpu-bwa",
-                                description="TPU-native short-read aligner")
+    from tpubwa.utils.cache import enable_compile_cache
+
+    enable_compile_cache()
+    p = argparse.ArgumentParser(
+        prog="tpu-bwa",
+        description="short-read aligner (BWA-MEM semantics) for GPUs, "
+                    "in JAX")
     sub = p.add_subparsers(dest="cmd", required=True)
 
     pi = sub.add_parser("index", help="build FM-index for a FASTA reference")
@@ -132,15 +112,16 @@ def main(argv: list[str] | None = None) -> int:
                     help="persist each batch's SAM as an idempotent chunk "
                          "file in DIR; re-running resumes from completed "
                          "chunks (restartable output)")
-    pm.add_argument("--preset", default=None,
-                    choices=["cpu-dev", "v5e-1", "v5e-4", "v5e-16"],
-                    help="topology preset: batch size + device mesh "
-                         "(reads data-parallel over the mesh)")
+    pm.add_argument("--preset", default=None, choices=PLATFORMS,
+                    help="batch size + device mesh of this platform's "
+                         "preset instead of the visible devices' own "
+                         "(gpu: 8192 reads per card, reads data-parallel "
+                         "over all cards; cpu: 256 reads)")
     pm.add_argument("--sa-shift", type=int, default=0, metavar="S",
                     help="sampled-SA serving: keep 1/2^S of the suffix "
                          "array on device and LF-walk the rest (exact "
-                         "results; the single-chip mode for genomes "
-                         "whose full SA exceeds HBM)")
+                         "results; the single-card mode for genomes "
+                         "whose full SA exceeds device memory)")
     pm.add_argument("--profile", default=None, metavar="DIR",
                     help="capture a jax.profiler device trace into DIR")
     pm.add_argument("--hosts", type=int, default=None, metavar="N",
@@ -148,12 +129,11 @@ def main(argv: list[str] | None = None) -> int:
                          "processes; each aligns its share of the read "
                          "batches into the shared --chunks DIR "
                          "(cat DIR/chunk_*.sam reproduces the single-"
-                         "host SAM body)")
+                         "host SAM body).  One process per card: on a "
+                         "shared machine give each its own "
+                         "CUDA_VISIBLE_DEVICES")
     pm.add_argument("--host-id", type=int, default=0, metavar="H",
                     help="this process's id in [0, --hosts)")
-    pm.add_argument("--coordinator", default=None, metavar="ADDR:PORT",
-                    help="jax.distributed coordinator address (TPU pods; "
-                         "local CPU testing needs none)")
     pm.add_argument("ref")
     pm.add_argument("reads1")
     pm.add_argument("reads2", nargs="?", default=None)

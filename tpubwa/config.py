@@ -12,6 +12,8 @@ import math
 
 import numpy as np
 
+PLATFORMS = ("cpu", "gpu")  # JAX platforms with a preset
+
 
 @dataclasses.dataclass
 class MemOptions:
@@ -53,89 +55,70 @@ class MemOptions:
     max_ins: int = 10000
     max_matesw: int = 50
 
-    # pipeline / device batching (TPU-specific; no reference analog except
-    # kthread batch sizes — SURVEY.md §2 kt_for ARM_BATCH_SIZE lesson: small
-    # balanced batches)
+    # pipeline / device batching (no reference analog except kthread batch
+    # sizes — SURVEY.md §2 kt_for ARM_BATCH_SIZE lesson: small balanced
+    # batches)
     batch_reads: int = 8192        # reads per device batch
     mesh_shape: tuple = ()         # device mesh for data-parallel sharding
     #                                (empty = single device)
     shard_sa: bool = False         # shard the suffix array over the mesh
     #                                (GRCh38-scale serving: the SA doesn't
-    #                                fit one chip; ops.fm.sa_lookup_sharded)
+    #                                fit one card; ops.fm.sa_lookup_sharded)
     sa_sample_shift: int = 0       # sampled-SA serving: keep every SA row
     #                                whose suffix position % 2^shift == 0
-    #                                on device (1/2^shift the HBM) and
+    #                                on device (1/2^shift the memory) and
     #                                LF-walk the rest (<= 2^shift-1 fused
     #                                gathers/lookup, exact results) — the
-    #                                single-chip route for genomes whose
-    #                                full SA exceeds HBM (ops.fm
+    #                                single-card route for genomes whose
+    #                                full SA exceeds device memory (ops.fm
     #                                sa_lookup_sampled).  0 = full SA.
     max_read_len: int = 160        # static padded read length on device
     max_smems_per_read: int = 64   # static SMEM capacity per read
     max_seeds_per_read: int = 128  # static seed capacity per read
     pad_tail_full: bool = False    # pad tail batches to batch_reads so the
     #                                whole run uses ONE seeding shape family
-    #                                (each extra shape costs ~50 s of cold
-    #                                TPU compile; a padded tail costs <1 s
-    #                                of masked device work).  Set by the
-    #                                production presets; off by default so
-    #                                small API/test batches stay small.
+    #                                (each extra shape is another cold
+    #                                compile; a padded tail is masked device
+    #                                work).  Set by the platform presets;
+    #                                off by default so small API/test
+    #                                batches stay small.
 
     @property
     def mapQ_coef_fac(self) -> float:
         return math.log(self.mapQ_coef_len)
 
     @classmethod
-    def preset(cls, name: str, **overrides) -> "MemOptions":
-        """Topology presets — the reference's runtime dispatcher picked a
-        fat binary per CPU generation ([src] runsimd_arm.cpp, SURVEY.md
-        §2.1); here the moral equivalent is a device-batch / mesh config
-        per TPU topology."""
-        presets = {
-            # host-only development (CPU, possibly a virtual device mesh)
-            "cpu-dev": dict(batch_reads=256, pad_tail_full=True),
-            # one v5e chip
-            "v5e-1": dict(batch_reads=8192, pad_tail_full=True),
-            # single-host 4-chip slice: reads data-parallel over ICI
-            "v5e-4": dict(batch_reads=32768, mesh_shape=(4,), pad_tail_full=True),
-            # 16-chip pod slice
-            "v5e-16": dict(batch_reads=65536, mesh_shape=(16,), pad_tail_full=True),
-        }
-        if name not in presets:
-            raise ValueError(
-                f"unknown preset {name!r}; choose from {sorted(presets)}")
-        cfg = dict(presets[name])
+    def preset(cls, platform: str, n_devices: int = 1,
+               **overrides) -> "MemOptions":
+        """Batch and mesh for ``n_devices`` devices of a JAX platform — the
+        reference's runtime dispatcher picked a binary per CPU generation
+        ([src] runsimd_arm.cpp, SURVEY.md §2.1); here the devices pick the
+        device batch and the data-parallel mesh.
+
+        "gpu": 8192 reads per card, reads data-parallel over a ("dp",) mesh
+        of all the cards when there is more than one.  8192 is a starting
+        value, not a measurement: the batch sweep on the card is still to
+        be done.  "cpu": 256 reads, one device.  Any other platform has no
+        preset and raises."""
+        if platform == "gpu":
+            n = int(n_devices)
+            cfg = dict(batch_reads=8192 * n, pad_tail_full=True,
+                       mesh_shape=(n,) if n > 1 else ())
+        elif platform == "cpu":
+            cfg = dict(batch_reads=256, pad_tail_full=True)
+        else:
+            raise ValueError(f"no preset for JAX platform {platform!r}; "
+                             f"supported: {', '.join(PLATFORMS)}")
         cfg.update(overrides)
         return cls(**cfg)
 
-    @staticmethod
-    def auto_chain(platform: str, n_devices: int) -> list[str]:
-        """Topology auto-detection: preset candidates, best first.
-
-        The reference's runtime dispatcher probes the CPU and execve's the
-        best fat binary with a G4 -> G3 -> G2 fallback chain ([src]
-        runsimd_arm.cpp, /root/reference/PHASE1_IMPLEMENTATION.md:85-131);
-        here the probe is jax.devices() and the fallback chain degrades
-        the mesh size down to a single device."""
-        if platform != "tpu":
-            return ["cpu-dev"]
-        chain = []
-        if n_devices >= 16:
-            chain.append("v5e-16")
-        if n_devices >= 4:
-            chain.append("v5e-4")
-        chain.append("v5e-1")
-        return chain
-
     @classmethod
     def auto(cls, **overrides) -> "MemOptions":
-        """Pick the preset for the visible device topology (first entry
-        of the fallback chain; align_fastq walks the rest on failure)."""
+        """The preset for the visible devices (jax.devices())."""
         import jax
 
         devs = jax.devices()
-        name = cls.auto_chain(devs[0].platform, len(devs))[0]
-        return cls.preset(name, **overrides)
+        return cls.preset(devs[0].platform, len(devs), **overrides)
 
     @property
     def split_len(self) -> int:

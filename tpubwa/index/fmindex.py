@@ -1,23 +1,22 @@
-"""FM-index build + on-disk + HBM layout.
+"""FM-index build + on-disk + device layout.
 
-TPU-native redesign of bwa-mem2's index (reference: [src] FMI_search.{h,cpp}
+Device-oriented redesign of bwa-mem2's index (reference: [src] FMI_search.{h,cpp}
 data structures ``cp_occ``/``GET_OCC``/``sa_ms_byte``/``sa_ls_word``, cited in
 PHASE4_WEEK4_POLISH.md:141-260 — see SURVEY.md §2.1/§3.2).  Differences by
 design:
 
 - occ checkpoints are a single fused int32 tensor ``cp[nblocks, 8]`` — cols
   0..3 = cumulative base counts at the block start, cols 4..7 = the block's 64
-  BWT symbols 2-bit-packed into 4 words (bitcast uint32).  One HBM gather row
+  BWT symbols 2-bit-packed into 4 words (bitcast uint32).  One device gather row
   fetches everything an occ query needs, mirroring GET_OCC's one-cache-line
   design (SURVEY.md §7 "FM-index memory behavior").
 - the suffix array is stored full-resolution in bwa-mem2's exact 5-byte
   split layout (sa_ms_byte uint8 + sa_ls_word uint32 — [src] FMI_search.h,
-  PHASE4_WEEK4_POLISH.md:148-175), so builds are valid to 2^40 bp.  HBM
+  PHASE4_WEEK4_POLISH.md:148-175), so builds are valid to 2^40 bp.  Device
   sizing at GRCh38 scale (N = 2*3.1 Gb): cp checkpoints N/64 x 32 B ~= 3.1
-  GB (fits), 5-byte SA ~= 31 GB (does not fit one v5e chip) — the device
-  pipeline replicates the SA only below seq_len 2^31 and the GRCh38 serving
-  mode shards the SA over the mesh with all-to-all lookups (SURVEY.md §5
-  "Distributed communication backend", planned).
+  GB, 5-byte SA ~= 31 GB, int64 SA ~= 50 GB (computed from sizes) — the
+  device pipeline can also serve a sampled SA (--sa-shift) or shard the SA
+  over the mesh (MemOptions.shard_sa, ops.fm.sa_lookup_sharded).
 
 Conventions (self-contained; property-tested against naive search):
 - index text: seq = forward_ref + revcomp(forward_ref), length N = 2*l_pac.
@@ -73,15 +72,14 @@ class FMIndex:
 
     @classmethod
     def build(cls, contigs: list[Contig], codes: np.ndarray,
-              holes: np.ndarray | None = None,
-              use_native: bool | None = None) -> "FMIndex":
+              holes: np.ndarray | None = None) -> "FMIndex":
         l_pac = int(codes.size)
         if 2 * l_pac >= 1 << 40:
             raise ValueError("reference exceeds the 5-byte SA layout (2^40)")
         rc = (3 - codes[::-1]).astype(np.uint8)
         seq = np.concatenate([codes, rc])
         n = seq.size
-        sa = suffix_array(seq, use_native=use_native)
+        sa = suffix_array(seq)
         bwt, primary = bwt_and_primary(seq, sa)
 
         counts = np.bincount(seq, minlength=4).astype(np.int64)
@@ -105,9 +103,9 @@ class FMIndex:
         )
 
     @classmethod
-    def from_fasta(cls, path: str, use_native: bool | None = None) -> "FMIndex":
+    def from_fasta(cls, path: str) -> "FMIndex":
         contigs, codes, holes = read_fasta(path)
-        return cls.build(contigs, codes, holes, use_native=use_native)
+        return cls.build(contigs, codes, holes)
 
     @staticmethod
     def _build_checkpoints(bwt: np.ndarray, n: int

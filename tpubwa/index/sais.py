@@ -1,8 +1,8 @@
 """Suffix array construction.
 
-Fast path: the C++ SA-IS library (tpubwa/native/sais.cpp), compiled lazily
-with g++ and loaded via ctypes.  Fallback: NumPy prefix-doubling (O(n log²n),
-fully vectorized) so the package works without a toolchain.
+The C++ SA-IS library (tpubwa/native/sais.cpp), compiled with g++ and
+loaded via ctypes, builds the index; NumPy prefix-doubling (O(n log²n),
+fully vectorized) is its test reference.
 
 Both build the suffix array of ``codes + sentinel`` where the sentinel is
 strictly smaller than every code — i.e. the returned SA has length n+1 and
@@ -17,29 +17,25 @@ import numpy as np
 from tpubwa.native.build import load_native as _load_native
 
 
-def suffix_array(codes: np.ndarray, use_native: bool | None = None) -> np.ndarray:
+def suffix_array(codes: np.ndarray) -> np.ndarray:
     """Suffix array of codes (values 0..3) + virtual sentinel.
 
     Returns int64 array of length n+1 with sa[0] == n.
     """
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     n = codes.size
-    lib = _load_native() if use_native in (None, True) else None
-    if use_native is True and lib is None:
-        raise RuntimeError("native sais unavailable")
-    if lib is not None:
-        s = np.empty(n + 1, dtype=np.uint8)
-        s[:n] = codes + 1
-        s[n] = 0
-        sa = np.empty(n + 1, dtype=np.int64)
-        rc = lib.sais_u8(
-            s.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            n + 1, 5)
-        if rc != 0:
-            raise RuntimeError(f"sais_u8 failed: {rc}")
-        return sa
-    return _suffix_array_doubling(codes)
+    lib = _load_native()
+    s = np.empty(n + 1, dtype=np.uint8)
+    s[:n] = codes + 1
+    s[n] = 0
+    sa = np.empty(n + 1, dtype=np.int64)
+    rc = lib.sais_u8(
+        s.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        sa.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        n + 1, 5)
+    if rc != 0:
+        raise RuntimeError(f"sais_u8 failed: {rc}")
+    return sa
 
 
 def _suffix_array_doubling(codes: np.ndarray) -> np.ndarray:
@@ -81,19 +77,15 @@ def bwt_and_primary(codes: np.ndarray, sa: np.ndarray) -> tuple[np.ndarray, int]
     codes = np.ascontiguousarray(codes, dtype=np.uint8)
     n = codes.size
     lib = _load_native()
-    if lib is not None:
-        bwt = np.empty(n, dtype=np.uint8)
-        primary = ctypes.c_int64()
-        sa64 = np.ascontiguousarray(sa, dtype=np.int64)
-        rc = lib.bwt_from_sa(
-            codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            sa64.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            n + 1,
-            bwt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
-            ctypes.byref(primary))
-        if rc != 0:
-            raise RuntimeError("bwt_from_sa failed")
-        return bwt, int(primary.value)
-    primary = int(np.flatnonzero(sa == 0)[0])
-    keep = sa[sa != 0]
-    return codes[keep - 1], primary
+    bwt = np.empty(n, dtype=np.uint8)
+    primary = ctypes.c_int64()
+    sa64 = np.ascontiguousarray(sa, dtype=np.int64)
+    rc = lib.bwt_from_sa(
+        codes.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        sa64.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        n + 1,
+        bwt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        ctypes.byref(primary))
+    if rc != 0:
+        raise RuntimeError("bwt_from_sa failed")
+    return bwt, int(primary.value)

@@ -1,7 +1,7 @@
 """FASTQ reading + fixed-shape device batching (host side).
 
 Reference analog: fastmap.cpp stage 1 of the kt_pipeline (read a chunk of
-FASTQ into memory; SURVEY.md §3.1).  On TPU the chunk becomes a fixed-shape
+FASTQ into memory; SURVEY.md §3.1).  On the device the chunk becomes a fixed-shape
 (B, L) uint8 code tensor + length vector so everything downstream is
 static-shaped for XLA.
 """

@@ -1,48 +1,73 @@
-"""Lazy build + load of the native host library (libtpubwa.so).
+"""Build + load of the native host library (libtpubwa).
 
-All C++ sources in this directory compile into one shared library, loaded
+The C++ sources of this directory compile into one shared library, loaded
 via ctypes.  Reference analog: the bwa-mem2 Makefile's native build
 (SURVEY.md §2.1 "Build system"); here the native pieces are the host-side
 runtime helpers (SA-IS index construction, seed chaining, SAM assembly)
-around the JAX/Pallas device compute path.
+around the JAX device compute path.
+
+keyed_build names each built library by a hash of its sources, flags and
+compiler, so a library built from other sources or by another compiler is
+never loaded; the target is the portable x86-64 baseline (no -march=native),
+because a checkout may be copied to another machine.  A failed build or
+load raises with the compiler's message: the main path has no fallback.
 """
 from __future__ import annotations
 
 import ctypes
-import glob
+import hashlib
 import os
 import subprocess
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SO_PATH = os.path.join(_DIR, "libtpubwa.so")
+# the library's inputs, all tracked by git
+SOURCES = ("sais.cpp", "chain.cpp", "extension.cpp", "samemit.cpp")
+HEADERS = ("core.h",)
+FLAGS = ("-O3", "-shared", "-fPIC")
 _lib = None
-_lib_failed = False
 
 
-def _sources() -> list[str]:
-    return sorted(glob.glob(os.path.join(_DIR, "*.cpp")))
+def keyed_build(compiler: str, flags, sources, deps, out_dir: str,
+                stem: str) -> str:
+    """Compile ``sources`` into ``out_dir/<stem>-<key>.so`` unless it
+    exists; the key hashes the sources, ``deps`` (headers), the flags and
+    the compiler's version.  Returns the library's path."""
+    version = subprocess.run([compiler, "--version"], check=True,
+                             capture_output=True, text=True).stdout
+    h = hashlib.sha256()
+    for path in (*sources, *deps):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update("\0".join(flags).encode())
+    h.update(version.encode())
+    out = os.path.join(out_dir, f"{stem}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(out_dir, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    proc = subprocess.run([compiler, *flags, "-o", tmp, *sources],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"building {stem} with {compiler} failed "
+                           f"({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def library_path() -> str:
+    return keyed_build(
+        "g++", FLAGS, [os.path.join(_DIR, s) for s in SOURCES],
+        [os.path.join(_DIR, h) for h in HEADERS],
+        os.path.join(_DIR, "build"), "libtpubwa")
 
 
 def load_native():
-    """Build (if stale) and load libtpubwa.so; returns None on failure so
-    callers can fall back to their NumPy paths."""
-    global _lib, _lib_failed
-    if _lib is not None or _lib_failed:
-        return _lib
-    try:
-        srcs = _sources()
-        stale = not os.path.exists(_SO_PATH) or any(
-            os.path.getmtime(_SO_PATH) < os.path.getmtime(s) for s in srcs)
-        if stale:
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-o", _SO_PATH] + srcs,
-                check=True, capture_output=True)
-        lib = ctypes.CDLL(_SO_PATH)
+    """Build (if needed) and load the native library; raises on failure."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(library_path())
         _declare(lib)
         _lib = lib
-    except Exception:
-        _lib_failed = True
     return _lib
 
 

@@ -1,7 +1,7 @@
 // SA-IS suffix array construction (linear time, induced sorting).
 //
-// Native host-side index-build helper for tpubwa (the TPU framework's
-// equivalent of bwa-mem2's index builder, SURVEY.md §3.2 — written from
+// Native host-side index-build helper for tpubwa (the equivalent of
+// bwa-mem2's index builder, SURVEY.md §3.2 — written from
 // scratch from the published SA-IS algorithm [Nong, Zhang, Chan 2009]).
 //
 // Contract: s[0..n-1] with values in [0, K), where s[n-1] == 0 is the unique

@@ -1,18 +1,19 @@
 """Batched banded affine-gap seed extension (JAX, device).
 
-TPU-native re-expression of the reference's inter-task-vectorized banded
+Re-expression of the reference's inter-task-vectorized banded
 Smith-Waterman (SURVEY.md §2.1 bandedSWA: one SIMD lane = one (query,target)
 pair, SoA layout).  Here one *batch lane* = one extension job, and each DP
 row is a fully vectorized [B, Q] update:
 
 - gap-from-M recurrence (see ops.extend_ref): F has no sequential
   column dependency — it is an exclusive running max of (M - oe_ins +
-  j*e_ins), computed with one cumulative-max per row.  This is the
-  "de(con)struction of the lazy-F loop" insight applied to TPU: the whole
-  row becomes data-parallel VPU work.
-- per-lane band, h0, zdrop, early-exit (dead lanes are masked; the row loop
-  is a while_loop that stops when every lane has terminated).
+  j*e_ins), computed with one cumulative-max per row (the
+  "de(con)struction of the lazy-F loop" insight): the whole row becomes
+  data-parallel elementwise work.
+- per-lane band, h0, zdrop, early-exit (dead lanes are masked).
 
+This is the plain core, compiled by XLA for any backend.  select_core
+picks the Hopper kernel (ops.extend_cuda) in its place on the GPU.
 Exact-equality property-tested against ops.extend_ref.extend_ref.
 """
 from __future__ import annotations
@@ -58,8 +59,7 @@ def _extend_core(query: jax.Array, qlen: jax.Array, target: jax.Array,
     mat:    [5, 5] int32 scoring matrix with bwa_fill_scmat structure
             (match a on the ACGT diagonal, one mismatch value off it, one
             vs-N value in row/col 4) — scores are computed arithmetically
-            from those three values; per-cell matrix gathers are far too
-            slow inside the row scan on TPU
+            from those three values instead of per-cell matrix gathers
     w / h0 / end_bonus / qlen / tlen: [B] int32 per-lane parameters
     """
     B, Q = query.shape
@@ -172,9 +172,8 @@ def _extend_core(query: jax.Array, qlen: jax.Array, target: jax.Array,
             alive=alive,
         ), None
 
-    # static-trip scan (dead lanes/rows are masked): on TPU a while_loop
-    # pays large per-iteration overhead, whereas scan pipelines the rows;
-    # the target is transposed once so each row reads its column directly
+    # static-trip scan (dead lanes/rows are masked); the target is
+    # transposed once so each row reads its column directly
     st.pop("i")
     st, _ = jax.lax.scan(
         body, st, (jnp.arange(T, dtype=I32), target.T))
@@ -186,6 +185,38 @@ def _extend_core(query: jax.Array, qlen: jax.Array, target: jax.Array,
 extend_batch = jax.jit(
     _extend_core,
     static_argnames=("o_del", "e_del", "o_ins", "e_ins", "zdrop", "mat_max"))
+
+
+def select_core(platform: str, mesh=None):
+    """The extension DP core for a platform, as the ``core`` argument of
+    extend_seed_batch and ops.extend_flat: the Hopper kernel
+    (ops.extend_cuda) on "gpu", with its lanes split over ``mesh``'s "dp"
+    axis when one is given; None, the plain lax.scan core, elsewhere."""
+    if platform != "gpu":
+        return None
+    from tpubwa.ops.extend_cuda import extend_core_cuda
+
+    if mesh is None:
+        return extend_core_cuda
+    return _lane_sharded(extend_core_cuda, mesh)
+
+
+@functools.cache
+def _lane_sharded(core, mesh):
+    """``core`` run per device on its shard of the lanes (a custom call has
+    no partitioning rule of its own; the lane count must divide the mesh)."""
+    from jax.sharding import PartitionSpec as P
+
+    lane, repl = P("dp"), P()
+
+    def sharded(query, qlen, target, tlen, mat, w, h0, end_bonus, **kw):
+        return jax.shard_map(
+            functools.partial(core, **kw), mesh=mesh,
+            in_specs=(lane, lane, lane, lane, repl, lane, lane, lane),
+            out_specs=lane, check_vma=False)(
+            query, qlen, target, tlen, mat, w, h0, end_bonus)
+
+    return sharded
 
 
 class SeedExtResult(NamedTuple):
@@ -214,8 +245,8 @@ def extend_seed_batch(q_l, qlen_l, t_l, tlen_l, q_r, qlen_r, t_r, tlen_r,
 
     h0: [B] initial score (seed_len * a).  Retry reruns lanes whose
     max_off crossed the bwa threshold with double band (MAX_BAND_TRY=2).
-    core: the single-extension kernel — defaults to the lax.scan core;
-    the TPU path passes ops.extend_pallas's VMEM-resident Pallas core.
+    core: the single-extension core (select_core) — None is the lax.scan
+    core.
     """
     import jax.numpy as jnp
 

@@ -1,11 +1,11 @@
 """Device-side FM-index search primitives (JAX).
 
-TPU-native re-expression of bwa-mem2's backward search (reference: [src]
+Batched re-expression of bwa-mem2's backward search (reference: [src]
 FMI_search.cpp backwardExt :1154-1220 and the GET_OCC checkpoint macro,
 surveyed in SURVEY.md §2.1): each occ query is ONE gather row from the fused
 ``cp[nblocks, 8]`` int32 tensor (4 cumulative counts + 64 BWT symbols packed
-2-bit into 4 words), followed by in-register popcount — the TPU analog of the
-reference's one-cache-line GET_OCC design.
+2-bit into 4 words), followed by in-register popcount — the device analog of
+the reference's one-cache-line GET_OCC design.
 
 All functions are shape-polymorphic over leading batch dims and jit-safe.
 """
@@ -21,7 +21,7 @@ from tpubwa.index.fmindex import FMIndex
 
 
 class DeviceIndex(NamedTuple):
-    """HBM-resident FM-index tensors.
+    """Device-resident FM-index tensors.
 
     Two dtype layouts share one code path (every op derives its interval
     dtype from ``L2.dtype``):
@@ -179,8 +179,8 @@ def backward_ext_all(di: DeviceIndex, ik: BiInterval,
 
 def set_intv(di: DeviceIndex, c: jax.Array) -> BiInterval:
     """Initial bi-interval for a single base c (0..3); c is clipped, callers
-    must mask ambiguous bases themselves.  L2 lookups are mask-sums (tiny
-    table gathers are slow on TPU)."""
+    must mask ambiguous bases themselves.  L2 lookups are mask-sums over
+    the 5-entry table instead of gathers."""
     c = jnp.clip(c, 0, 3).astype(jnp.int32)
     ids = jnp.arange(5, dtype=jnp.int32)
 
@@ -201,10 +201,10 @@ def sa_lookup(di: DeviceIndex, r: jax.Array) -> jax.Array:
 
 # ------------------------------------------------------- sampled SA ----
 #
-# Big-genome single-chip serving (SURVEY.md §5; VERDICT r4 next #5): a
-# full-resolution device SA is 8 B/row — 19.2 GB for the 1.2 Gbp wide
-# fixture, 2x a v5e's HBM.  bwa classic solves this with a sampled SA +
-# LF-walk (bwt_sa / bwt_invPsi); the TPU re-expression samples by SUFFIX
+# Big-genome single-card serving (SURVEY.md §5): a full-resolution wide
+# device SA is 8 B/row — 19.2 GB for the 1.2 Gbp wide fixture, 50 GB at
+# GRCh38 scale.  bwa classic solves this with a sampled SA + LF-walk
+# (bwt_sa / bwt_invPsi); this re-expression samples by SUFFIX
 # POSITION (rows r with sa[r] % 2^shift == 0) so the walk is BOUNDED at
 # 2^shift - 1 LF steps (row-index sampling, bwa's choice, has an
 # unbounded tail — unusable in a fixed-trip device loop).  Each walk step
@@ -372,8 +372,8 @@ def sa_lookup_sampled(di: DeviceIndex, ss: SampledSA, rows: jax.Array,
 def sa_lookup_sharded(mesh, sa: jax.Array, rows: jax.Array,
                       axis: str = "dp") -> jax.Array:
     """SA positions for global rows when ``sa`` is SHARDED over ``axis``
-    (the GRCh38 serving mode: the 5-byte SA is ~31 GB and does not fit
-    one chip's HBM — fmindex.py sizing; SURVEY.md §5 distributed plan).
+    (the GRCh38 serving mode: the SA is split over the cards' memory —
+    fmindex.py sizing; SURVEY.md §5 distributed plan).
 
     Pattern: all_gather the (small) request vector over the mesh axis,
     every shard answers the requests that land in its slice, and a

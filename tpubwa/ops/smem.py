@@ -1,6 +1,6 @@
 """Shared SMEM data structures and small batched helpers (JAX).
 
-TPU-native re-expression of the reference's seeding engine (SURVEY.md §3.1:
+Batched re-expression of the reference's seeding engine (SURVEY.md §3.1:
 worker_bwt → mem_collect_intv → bwt_smem1 → backward-search loop, [src]
 FMI_search.cpp:599-760): instead of per-read scalar loops with software
 prefetch, every read in a (B,)-batch advances in lockstep through masked
@@ -48,7 +48,7 @@ def _take_q(q: jax.Array, i: jax.Array) -> jax.Array:
 
 def _pick_base(arr4: jax.Array, c: jax.Array) -> jax.Array:
     """arr4: [..., 4]; c: [...] -> arr4[..., c].  Mask-sum instead of a
-    gather: tiny-minor-dim gathers are slow on TPU."""
+    gather over the 4-wide minor dim."""
     ids = jnp.arange(4, dtype=jnp.int32)
     sel = ids == jnp.clip(c, 0, 3)[..., None]
     return jnp.sum(jnp.where(sel, arr4, 0), axis=-1)

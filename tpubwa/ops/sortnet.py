@@ -1,8 +1,9 @@
 """Row-wise bitonic sorting network.
 
-XLA's generic sort lowers poorly on TPU (hundreds of ms for [4k, 64] rows);
-a bitonic network over a power-of-two row width is pure VPU work: ~W/2 *
-log^2(W) compare-exchanges with static permutations.  Used for the per-read
+A bitonic network over a power-of-two row width is plain elementwise
+work: ~W/2 * log^2(W) compare-exchanges with static permutations, in
+place of XLA's generic sort (which was slow on the first target; whether
+lax.sort does better on the GPU is not measured).  Used for the per-read
 SMEM / seed slot buffers (W = 32..128).
 
 Not stable — callers must ensure equal keys carry identical payloads (true

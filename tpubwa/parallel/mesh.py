@@ -1,13 +1,12 @@
-"""Device-mesh parallelism: data-parallel read sharding over TPU chips.
+"""Device-mesh parallelism: data-parallel read sharding over the cards.
 
-TPU-native replacement for the reference's thread/process scale-out
-(SURVEY.md §2.2): ``kt_for`` work-sharing over pthreads becomes the batch
-axis of a ``jax.sharding.Mesh`` — reads are sharded across chips along the
-"dp" axis, the FM-index tensors are replicated per device (the reference
+Replacement for the reference's thread/process scale-out (SURVEY.md §2.2):
+``kt_for`` work-sharing over pthreads becomes the batch axis of a
+``jax.sharding.Mesh`` — reads are sharded across devices along the "dp"
+axis, the FM-index tensors are replicated per device (the reference
 equivalent: each EC2 instance holds the full index), and XLA inserts the
-(empty, for pure dp) collectives.  Index *sharding* with all-to-all occ
-lookups — needed at GRCh38 scale — is the planned "tensor-parallel" axis
-(SURVEY.md §5 "Distributed communication backend").
+(empty, for pure dp) collectives.  The suffix array can be sharded over the
+same axis instead (MemOptions.shard_sa, ops.fm.sa_lookup_sharded).
 """
 from __future__ import annotations
 
@@ -24,21 +23,28 @@ from tpubwa.ops.seeds import smems_to_seeds
 from tpubwa.ops.smem_chain import collect_smems_chain_fused
 
 
-def make_mesh(n_devices: int | None = None, axis: str = "dp") -> Mesh:
-    """Mesh over the default platform; falls back to the (virtual) CPU
-    device set when the default platform has fewer than n_devices (the
-    xla_force_host_platform_device_count test/dry-run path)."""
-    devs = jax.devices()
-    if n_devices is not None and len(devs) < n_devices:
-        try:
-            cpus = jax.devices("cpu")
-            if len(cpus) >= n_devices:
-                devs = cpus
-        except RuntimeError:
-            pass
+def make_mesh(n_devices: int | None = None, axis: str = "dp",
+              devices=None) -> Mesh:
+    """Mesh over the first ``n_devices`` of ``devices`` (default: the
+    default platform's devices).  Asking for more devices than there are
+    is an error."""
+    devs = list(jax.devices() if devices is None else devices)
     if n_devices is not None:
+        if len(devs) < n_devices:
+            raise ValueError(
+                f"a mesh of {n_devices} devices was asked for, but only "
+                f"{len(devs)} {devs[0].platform} device(s) are visible")
         devs = devs[:n_devices]
     return Mesh(np.array(devs), (axis,))
+
+
+def default_device():
+    """The device that uncommitted arrays land on: the one set by
+    jax.default_device when inside it, else the default platform's first."""
+    d = jax.config.jax_default_device
+    if d is None:
+        return jax.devices()[0]
+    return jax.devices(d)[0] if isinstance(d, str) else d
 
 
 @functools.partial(jax.jit, static_argnames=("min_seed_len", "max_occ"))

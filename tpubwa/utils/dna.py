@@ -1,7 +1,7 @@
 """DNA sequence encoding utilities.
 
 Encoding follows bwa's ``nst_nt4_table``: A=0, C=1, G=2, T=3, anything else=4
-(ambiguous).  2-bit packing (16 bases / uint32 word) matches the HBM layout of
+(ambiguous).  2-bit packing (16 bases / uint32 word) matches the device layout of
 the FM-index occ checkpoints (reference design: GET_OCC cache-line blocks,
 SURVEY.md §7 "FM-index memory behavior").
 """

@@ -1,6 +1,6 @@
 """Generic lockstep round driver for job-yielding generators.
 
-The TPU-native replacement for the reference's per-thread work loops
+The batched replacement for the reference's per-thread work loops
 (SURVEY.md §2.2 "SIMD inter-task parallelism"): per-item host control flow
 is written as a generator that yields device jobs; the driver collects one
 pending job per live generator, executes them as one (or a few, bucketed)
